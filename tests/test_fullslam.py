@@ -334,10 +334,10 @@ def test_bench_drive_ate_gate(tmp_path):
     accuracy.  This runs THE committed bench drive (bench._make_drive,
     same seed / drift / config / batch as bench.run_full_slam) and gates
     its ATE.  r3 shipped 0.081 m; r4 shipped a 6.6x throughput win and a
-    silent 0.081 -> 0.137 regression; r5 landed 0.084 on the TPU after
-    the viewpoint-bias fix + 0.5 m voxels + prior extrapolation.  The
-    bound leaves headroom for backend numerics (CPU here vs TPU in the
-    committed bench) but fails on any r4-scale slide."""
+    silent 0.081 -> 0.137 regression; r5 landed 0.084 after the
+    viewpoint-bias fix + 0.5 m voxels + prior extrapolation.  The bound
+    leaves headroom for backend numerics (CPU here vs the GPU the bench
+    runs on) but fails on any r4-scale slide."""
     from bench import _make_drive, _slam_cfg
     from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
 

@@ -1,6 +1,8 @@
 """Multi-host execution tests: real multi-PROCESS runs over the Gloo CPU
-backend — the closest no-pod approximation of multi-host TPU (each process
-owns its devices and its map shard; collectives cross process boundaries).
+backend — the closest single-machine approximation of a multi-host cluster
+(each process owns its devices and its map shard; collectives cross
+process boundaries).  Every worker pins the CPU platform before it touches
+JAX, so these tests never open a GPU even on a machine that has one.
 
 The reference has no distributed execution at all (SURVEY.md §2b); its
 loopback-fake-backend testing idea (§4.2) is applied here to the
@@ -51,7 +53,7 @@ def test_two_process_sharded_registration(tmp_path):
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(os.path.dirname(_WORKER))
-    env.pop("JAX_PLATFORMS", None)      # worker pins cpu itself
+    env["JAX_PLATFORMS"] = "cpu"        # never open a GPU
     procs = [subprocess.Popen(
         [sys.executable, _WORKER, str(pid), "2", str(port), str(tmp_path)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -94,7 +96,7 @@ def test_two_process_slam_session(tmp_path):
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(os.path.dirname(_SESSION_WORKER))
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [subprocess.Popen(
         [sys.executable, _SESSION_WORKER, str(pid), "2", str(port),
          str(tmp_path)],

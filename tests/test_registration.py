@@ -349,8 +349,8 @@ def test_reassociate_every_matches_classical(world):
     """Block re-association (reassociate_every=k) must recover the same
     transform as classical per-iteration ICP: association is the only
     part hoisted, and with a near-basin prior the correspondence set is
-    stable.  This is the production TPU config (association gathers cost
-    ~100x a fixed-correspondence GN iteration on that backend)."""
+    stable.  This is the production config (association gathers cost
+    far more than a fixed-correspondence GN iteration)."""
     pos_a = np.array([0.0, 0.0, 2.0])
     tgt = _static_scan(world, pos_a, 0.0)
     t_gt = np.array([0.1, 0.4, 0.03], np.float32)
@@ -383,7 +383,7 @@ def test_reassociate_every_matches_classical(world):
 
 
 def test_dilated_index_registration(world):
-    """The pre-dilated dense index (production TPU path: one gather per
+    """The pre-dilated dense index (production path: one gather per
     point, neighborhood + usable gating baked into the table) must agree
     with the classical search wherever the point's own voxel is usable,
     and registration through it must recover the ground-truth transform."""

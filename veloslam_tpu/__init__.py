@@ -1,6 +1,6 @@
-"""veloslam_tpu — a TPU-native LiDAR SLAM engine.
+"""veloslam_tpu — a LiDAR SLAM engine written in JAX.
 
-A brand-new JAX / XLA / Pallas / pjit framework with the capabilities of the
+A JAX / XLA / shard_map framework with the capabilities of the
 VeloSLAM reference (victl/VeloSLAM): Velodyne HDL-32E / HDL-64 / VLP-16 packet
 decode into motion-compensated point frames, INS/GPS time sync and pose
 interpolation, scan registration (voxelized point-to-plane GICP and NDT),

@@ -20,8 +20,6 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    from veloslam_tpu.utils import compilecache
-    compilecache.enable()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--checkpoint", help="pipeline checkpoint directory")
     ap.add_argument("--pcap", help="or: decode this pcap directly")
@@ -33,13 +31,16 @@ def main(argv=None) -> int:
     ap.add_argument("--bev", metavar="PATH", help="dump BEV image")
     ap.add_argument("--pcd", metavar="PATH", help="dump PCD cloud")
     ap.add_argument("--txt", metavar="PATH", help="dump xyz text")
-    ap.add_argument("--platform", choices=["cpu", "default"],
+    ap.add_argument("--platform", choices=["cpu", "gpu", "default"],
                     default="cpu")
     args = ap.parse_args(argv)
 
-    if args.platform == "cpu":
+    if args.platform != "default":
         import jax
-        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_platforms",
+                          {"cpu": "cpu", "gpu": "cuda"}[args.platform])
+    from veloslam_tpu.utils import compilecache
+    compilecache.enable()
 
     from veloslam_tpu.runtime.framestore import FrameStore
     from veloslam_tpu.utils import dumps

@@ -21,8 +21,6 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    from veloslam_tpu.utils import compilecache
-    compilecache.enable()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--pcap", help="input pcap file")
     ap.add_argument("--ins", help="INS text log (reference format)")
@@ -42,7 +40,7 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-dir", help="save a resumable checkpoint")
     ap.add_argument("--gt", help="ground-truth trajectory txt "
                                  "(t_us x y z per row) for ATE")
-    ap.add_argument("--platform", choices=["cpu", "tpu", "default"],
+    ap.add_argument("--platform", choices=["cpu", "gpu", "default"],
                     default="default")
     ap.add_argument("--bev", nargs="?", const="bev.html", metavar="FILE",
                     help="write an interactive BEV trajectory artifact "
@@ -65,9 +63,12 @@ def main(argv=None) -> int:
                          "(--fast / --batched modes)")
     args = ap.parse_args(argv)
 
-    if args.platform == "cpu":
+    if args.platform != "default":
         import jax
-        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_platforms",
+                          {"cpu": "cpu", "gpu": "cuda"}[args.platform])
+    from veloslam_tpu.utils import compilecache
+    compilecache.enable()
 
     from veloslam_tpu.config import SensorConfig, SlamConfig
     from veloslam_tpu.runtime.evaluate import ate, interpolate_positions, rpe

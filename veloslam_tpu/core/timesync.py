@@ -18,7 +18,8 @@ here is true GPS time converted to Unix microseconds, and the wall-clock
 anchor is an explicit, optional argument (needed only for live capture
 where the sensor's hour base is unknown).
 
-All host-side, pure numpy/python: this runs once per packet, never on TPU.
+All host-side, pure numpy/python: this runs once per packet, never on the
+device.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Vectorized HDL packet decode — the TPU replacement for the reference's
-per-point hot loop.
+"""Vectorized HDL packet decode — the array-program replacement for the
+reference's per-point hot loop.
 
 The reference decodes packet-by-packet, firing-by-firing, laser-by-laser
 (reference HDLParser.cxx:980-1055 → processFiring 900-977 → pushFiringData
@@ -16,8 +16,8 @@ is decoded as one jitted program over dense (N, 12, 32) arrays:
   * crop-region filtering (HDLParser.cxx:629-639) as mask updates.
 
 No sin/cos lookup tables: the reference's 36001-entry LUT
-(HDLParser.cxx:755-768) is a CPU trick; on TPU the VPU evaluates
-transcendentals faster than a 36001-wide gather.
+(HDLParser.cxx:755-768) is a CPU trick; on an accelerator evaluating the
+transcendentals elementwise is cheaper than a 36001-wide gather.
 
 Motion compensation interpolates an INS pose per firing (finer than the
 reference's per-packet interpolation, HDLParser.cxx:989-1007) and applies a

@@ -1,8 +1,8 @@
 """Streaming frame assembly: decoded packet batches → dense per-beam frames.
 
 A frame is one LiDAR revolution, stored as fixed-shape padded tensors
-(the TPU replacement for the reference's growable per-beam PCL vectors,
-reference HDLFrame.h:13-47 / HDLParser.cxx:570-579):
+(the static-shape replacement for the reference's growable per-beam PCL
+vectors, reference HDLFrame.h:13-47 / HDLParser.cxx:570-579):
 
     xyz       (L, MAX_F, 3) float32   L = beams, MAX_F = max points/beam
     intensity (L, MAX_F)    float32
@@ -162,9 +162,9 @@ def assemble_frames(decoded: DecodedBatch, xyz_world: jax.Array,
     sl = jnp.where(ok, slot_b[:, None], TRASH)
     pp = jnp.where(ok, jnp.minimum(pos_pt, F - 1), F - 1)
     lp = jnp.clip(decoded.laser_id.reshape(B, lasers), 0, L - 1)
-    # Flat linear scatter indices: multi-dimensional scatter indices lower
-    # poorly on TPU (same pathology as multi-dim gathers); a computed flat
-    # index into a reshaped buffer takes the fast single-axis path.
+    # Flat linear scatter indices: a computed flat index into a reshaped
+    # buffer takes the single-axis scatter path instead of a
+    # multi-dimensional one.
     flat_idx = ((sl * L + lp) * F + pp).reshape(-1)     # (B*32,)
     M = (S + 2) * L * F
 
@@ -233,14 +233,13 @@ def frame_points(frame_xyz: jax.Array, frame_mask: jax.Array
 #
 # assemble_frames scatters every decoded point into dense (slot, laser,
 # position) frame tensors — 4 channels x 6.3M writes per 16384-packet
-# batch, measured 450 ms on the v5e, with another 530 ms for the
-# histogram subsample that immediately throws 3/4 of the scattered points
-# away.  But decode output is already FRAME-CONTIGUOUS: firing blocks are
-# in time order, so a frame is a contiguous block range [start, end) of
-# the (N*12, 32) array.  The odometry path only needs `reg_points` points
-# per frame with masks — which is a strided GATHER of whole 32-laser
-# block rows from the decode output (plus the open-frame carry), no
-# scatters at all.  Row gathers of this size measure ~4 ms.
+# batch, followed by a histogram subsample that immediately throws 3/4 of
+# the scattered points away.  But decode output is already
+# FRAME-CONTIGUOUS: firing blocks are in time order, so a frame is a
+# contiguous block range [start, end) of the (N*12, 32) array.  The
+# odometry path only needs `reg_points` points per frame with masks —
+# which is a strided GATHER of whole 32-laser block rows from the decode
+# output (plus the open-frame carry), no scatters at all.
 
 class SampleCarry(NamedTuple):
     """Open-frame compensated blocks carried between batches,
@@ -299,11 +298,9 @@ def sample_frames(decoded: DecodedBatch, xyz_world: jax.Array,
     the histogram subsample picks from assembled frames
     (runtime/odometry._subsample), found here with one (slot, hash) key
     sort over the decode output + a rank gather, instead of the
-    scatter-assembled frame tensors + per-slot histograms (measured
-    450 + 530 ms of scatters → a ~40 ms sort + ~15 ms of gathers at
-    16384 packets).  The output is ordered by ascending hash, so any
-    prefix of the P axis is itself a uniform subsample (the keyframe /
-    map-integration contract).  Selection-law fidelity is load-bearing:
+    scatter-assembled frame tensors + per-slot histograms.  The output is
+    ordered by ascending hash, so any prefix of the P axis is itself a
+    uniform subsample (the keyframe / map-integration contract).  Selection-law fidelity is load-bearing:
     structured samplers (whole/partial firing blocks, coupled lattices)
     leave vertical point strings or laser-pinned azimuth bands whose
     voxel statistics break registration on observability-marginal scenes.

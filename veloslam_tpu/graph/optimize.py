@@ -1,19 +1,22 @@
 """Gauss-Newton pose-graph solver with Schur landmark elimination.
 
-TPU-first solver design (BASELINE configs[3]):
+Solver design (BASELINE configs[3]):
 
   * per-edge residuals r = log(Z⁻¹ ∘ (Tᵢ⁻¹ ∘ Tⱼ)) and their Jacobians come
     from vmapped forward-mode autodiff of the retraction-parameterized
     residual — no hand-derived Jacobians to get wrong;
   * the normal equations are assembled DENSE: (6K, 6K) for K keyframes.
     Sparse factorization is a CPU idiom; at SLAM scale (K ≤ a few
-    thousand) a dense blocked Cholesky on the MXU beats pointer-chasing
+    thousand) one dense blocked Cholesky beats pointer-chasing
     sparsity, and scatter-adding (12, 12) edge blocks into a dense H is a
     single XLA scatter;
   * landmarks are eliminated by Schur complement: All is block-diagonal
     (3, 3) (closed-form inverse), the reduced system
     S = App − Apl·All⁻¹·Alp couples only poses, and landmarks
     back-substitute in one batched solve;
+  * every product runs at HIGHEST float32 precision: edge information
+    reaches 1e6 (GraphConfig.odom_edge_info), so the system is badly
+    conditioned and a reduced-precision product would move the solution;
   * gauge freedom is fixed by a strong prior on keyframe 0, and padding
     rows are regularized by damping, so one static-shape program serves
     any graph size up to capacity.
@@ -32,6 +35,8 @@ import jax.numpy as jnp
 
 from veloslam_tpu.core import se3
 from veloslam_tpu.graph.posegraph import GraphArrays
+
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 class SolveStats(NamedTuple):
@@ -80,8 +85,8 @@ def _assemble_pose_system(g: GraphArrays, max_poses: int):
                                    g.t[g.e_j], g.e_q, g.e_t)
     w = g.e_valid.astype(r.dtype)[:, None] * g.e_info        # (E, 6)
     Jw = J * w[:, :, None]                                    # (E, 6, 12)
-    blocks = jnp.einsum("eri,erj->eij", Jw, J)                # (E, 12, 12)
-    bvec = jnp.einsum("eri,er->ei", Jw, r)                    # (E, 12)
+    blocks = _einsum("eri,erj->eij", Jw, J)                   # (E, 12, 12)
+    bvec = _einsum("eri,er->ei", Jw, r)                       # (E, 12)
     cost = jnp.sum(w * r * r)
 
     rows = jnp.concatenate([g.e_i[:, None] * 6 + jnp.arange(6),
@@ -117,17 +122,17 @@ def _assemble_landmark_terms(g: GraphArrays, max_poses: int,
     cost = jnp.sum(w * r * r)
 
     rows_p = g.o_i[:, None] * 6 + jnp.arange(6)               # (O, 6)
-    app = jnp.einsum("ori,orj->oij", Jpw, Jp)                 # (O, 6, 6)
+    app = _einsum("ori,orj->oij", Jpw, Jp)                    # (O, 6, 6)
     H_pp = jnp.zeros((6 * K, 6 * K), r.dtype)
     H_pp = H_pp.at[rows_p[:, :, None], rows_p[:, None, :]].add(app)
     b_p = jnp.zeros(6 * K, r.dtype).at[rows_p].add(
-        jnp.einsum("ori,or->oi", Jpw, r))
+        _einsum("ori,or->oi", Jpw, r))
 
-    all_blocks = jnp.einsum("ori,orj->oij", Jlw, Jl)          # (O, 3, 3)
+    all_blocks = _einsum("ori,orj->oij", Jlw, Jl)             # (O, 3, 3)
     All = jax.ops.segment_sum(all_blocks, g.o_l, num_segments=M)
-    b_l = jax.ops.segment_sum(jnp.einsum("ori,or->oi", Jlw, r), g.o_l,
+    b_l = jax.ops.segment_sum(_einsum("ori,or->oi", Jlw, r), g.o_l,
                               num_segments=M)
-    Apl = jnp.einsum("ori,orj->oij", Jpw, Jl)                 # (O, 6, 3)
+    Apl = _einsum("ori,orj->oij", Jpw, Jl)                    # (O, 6, 3)
     # Per-landmark pose-coupling tensor T_l = Σ_o [rows_o ⊗ Apl_o]
     # (M, 3, 6K): built here so distributed callers can psum per-shard
     # partials — every returned term is a SUM over observations.
@@ -156,15 +161,15 @@ def _schur_step(g_cur: GraphArrays, H_ee, b_ee, H_po, b_po, All, b_l, T,
     All_inv = jnp.linalg.inv(All)                          # batched 3x3
     All_inv = jnp.where(land_mask[:, None, None], All_inv, 0.0)
 
-    U = jnp.einsum("lab,lbk->lak", All_inv, T)             # (M, 3, 6K)
-    S = App - jnp.einsum("lak,lam->km", T, U)
-    b_red = b_p - jnp.einsum("lak,la->k", T,
-                             jnp.einsum("lab,lb->la", All_inv, b_l))
+    U = _einsum("lab,lbk->lak", All_inv, T)                # (M, 3, 6K)
+    S = App - _einsum("lak,lam->km", T, U)
+    b_red = b_p - _einsum("lak,la->k", T,
+                          _einsum("lab,lb->la", All_inv, b_l))
 
     delta_p = -jax.scipy.linalg.cho_solve(
         jax.scipy.linalg.cho_factor(S), b_red)
-    Alp_dp = jnp.einsum("lak,k->la", T, delta_p)
-    delta_l = -jnp.einsum("lab,lb->la", All_inv, b_l + Alp_dp)
+    Alp_dp = _einsum("lak,k->la", T, delta_p)
+    delta_l = -_einsum("lab,lb->la", All_inv, b_l + Alp_dp)
 
     delta_p = delta_p.reshape(K, 6)
     pose_mask = (jnp.arange(K) < g_cur.n_poses)[:, None]

@@ -11,7 +11,7 @@ module solves the same Gauss-Newton step without ever forming H:
   * per-edge residuals/Jacobians come from the SAME vmapped forward-mode
     autodiff as the dense path (graph.optimize._edge_r_and_J);
   * H·v is two row gathers + batched (E,6,12) einsums + two segment_sums
-    — static shapes, MXU/VPU work, O(E) memory;
+    — static shapes, dense batched work, O(E) memory;
   * the preconditioner is the odometry CHAIN (block-tridiagonal part of
     H, solved exactly by a scanned block-Thomas factorization), so a
     closure correction propagates end-to-end in one application instead
@@ -21,7 +21,7 @@ module solves the same Gauss-Newton step without ever forming H:
     (no data-dependent control flow), so the whole solve jits and can run
     inside the device-resident finalize sweep.
 
-Crossover: dense wins below ~2k poses (one MXU Cholesky beats ~10²
+Crossover: dense wins below ~2k poses (one dense Cholesky beats ~10²
 gather/scatter CG iterations); PCG is O(E·cg_iters) in time and O(E) in
 memory and keeps going to 16k+ poses where dense cannot allocate.
 solve_auto picks per graph capacity.
@@ -40,6 +40,9 @@ from veloslam_tpu.graph.optimize import (SolveStats, _edge_r_and_J,
                                          _obs_r_and_J)
 from veloslam_tpu.graph.posegraph import GraphArrays
 
+# Full float32 products throughout (see graph.optimize).
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+
 
 def _edge_terms(g: GraphArrays):
     """Per-edge (r (E,6), J (E,6,12), w (E,6)) at the current estimate."""
@@ -56,12 +59,12 @@ def _assemble_rhs_diag(g: GraphArrays, r, J, w, K: int, damping: float,
     Jw = J * w[:, :, None]                                   # (E, 6, 12)
     Ji, Jj = J[:, :, :6], J[:, :, 6:]
     Jwi, Jwj = Jw[:, :, :6], Jw[:, :, 6:]
-    bi = jnp.einsum("eri,er->ei", Jwi, r)                    # (E, 6)
-    bj = jnp.einsum("eri,er->ei", Jwj, r)
+    bi = _einsum("eri,er->ei", Jwi, r)                       # (E, 6)
+    bj = _einsum("eri,er->ei", Jwj, r)
     b = (jax.ops.segment_sum(bi, g.e_i, num_segments=K)
          + jax.ops.segment_sum(bj, g.e_j, num_segments=K))
-    Dii = jnp.einsum("eri,erj->eij", Jwi, Ji)                # (E, 6, 6)
-    Djj = jnp.einsum("eri,erj->eij", Jwj, Jj)
+    Dii = _einsum("eri,erj->eij", Jwi, Ji)                   # (E, 6, 6)
+    Djj = _einsum("eri,erj->eij", Jwj, Jj)
     D = (jax.ops.segment_sum(Dii, g.e_i, num_segments=K)
          + jax.ops.segment_sum(Djj, g.e_j, num_segments=K))
     D = D + damping * jnp.eye(6)[None]
@@ -78,10 +81,10 @@ def _make_hv(g: GraphArrays, J, w, K: int, damping: float,
     Jwi, Jwj = Jw[:, :, :6], Jw[:, :, 6:]
 
     def hv(v):
-        u = (jnp.einsum("eri,ei->er", Ji, v[g.e_i])
-             + jnp.einsum("eri,ei->er", Jj, v[g.e_j]))       # (E, 6)
-        yi = jnp.einsum("eri,er->ei", Jwi, u)
-        yj = jnp.einsum("eri,er->ei", Jwj, u)
+        u = (_einsum("eri,ei->er", Ji, v[g.e_i])
+             + _einsum("eri,ei->er", Jj, v[g.e_j]))          # (E, 6)
+        yi = _einsum("eri,er->ei", Jwi, u)
+        yj = _einsum("eri,er->ei", Jwj, u)
         y = (jax.ops.segment_sum(yi, g.e_i, num_segments=K)
              + jax.ops.segment_sum(yj, g.e_j, num_segments=K))
         y = y + damping * v
@@ -94,7 +97,7 @@ def _chain_terms(g: GraphArrays, J, w, K: int):
     (K,6,6) — the off-diagonals of the odometry chain."""
     Jw = J * w[:, :, None]
     Jwi, Jj = Jw[:, :, :6], J[:, :, 6:]
-    blocks = jnp.einsum("eri,erj->eij", Jwi, Jj)             # (E, 6, 6)
+    blocks = _einsum("eri,erj->eij", Jwi, Jj)                # (E, 6, 6)
     chain = g.e_valid & (g.e_j == g.e_i + 1)
     seg = jnp.where(chain, g.e_i, K)
     return jax.ops.segment_sum(
@@ -119,8 +122,8 @@ def _chain_precond(D, B, K: int):
     factorization is safe wherever H is."""
     def step(Uinv_prev, inputs):
         Dk, Bprev = inputs
-        L = jnp.matmul(Bprev.T, Uinv_prev)                   # (6, 6)
-        U = Dk - jnp.matmul(L, Bprev)
+        L = _einsum("ji,jk->ik", Bprev, Uinv_prev)           # (6, 6)
+        U = Dk - _einsum("ij,jk->ik", L, Bprev)
         Uinv = jnp.linalg.inv(U)
         return Uinv, (Uinv, L)
 
@@ -135,15 +138,15 @@ def _chain_solve(Uinv, L, B, r):
     """Solve M z = r given the block-Thomas factors (two scans)."""
     def fwd(y_prev, inputs):
         rk, Lk = inputs
-        y = rk - jnp.einsum("ij,j->i", Lk, y_prev)
+        y = rk - _einsum("ij,j->i", Lk, y_prev)
         return y, y
 
     _, y = jax.lax.scan(fwd, jnp.zeros(6, r.dtype), (r, L))
 
     def bwd(z_next, inputs):
         yk, Uinvk, Bk = inputs
-        z = jnp.einsum("ij,j->i", Uinvk,
-                       yk - jnp.einsum("ij,j->i", Bk, z_next))
+        z = _einsum("ij,j->i", Uinvk,
+                    yk - _einsum("ij,j->i", Bk, z_next))
         return z, z
 
     Bn = jnp.concatenate([B[:-1], jnp.zeros((1, 6, 6), B.dtype)])
@@ -219,7 +222,7 @@ def solve_pcg(g: GraphArrays, *, max_poses: int, iterations: int = 8,
             apply_M = functools.partial(_chain_solve, Uinv, L, B)
         else:
             Dinv = jnp.linalg.inv(D)
-            apply_M = lambda rr: jnp.einsum("kij,kj->ki", Dinv, rr)
+            apply_M = lambda rr: _einsum("kij,kj->ki", Dinv, rr)
         delta = -_pcg(_make_hv(g_cur, J, w, K, damping, prior_weight),
                       b, apply_M, cg_iters)
         pose_mask = (jnp.arange(K) < g_cur.n_poses)[:, None]
@@ -265,38 +268,38 @@ def _landmark_elimination(g: GraphArrays, r_o, Jp, Jl, w_o, K: int,
     Jlw = Jl * w_o[:, :, None]                                # (O, 3, 3)
     cost = jnp.sum(w_o * r_o * r_o)
     # Pose-side gradient and block-diagonal of App from observations.
-    b_p = jax.ops.segment_sum(jnp.einsum("ori,or->oi", Jpw, r_o), g.o_i,
+    b_p = jax.ops.segment_sum(_einsum("ori,or->oi", Jpw, r_o), g.o_i,
                               num_segments=K)                 # (K, 6)
-    D_o = jax.ops.segment_sum(jnp.einsum("ori,orj->oij", Jpw, Jp), g.o_i,
+    D_o = jax.ops.segment_sum(_einsum("ori,orj->oij", Jpw, Jp), g.o_i,
                               num_segments=K)                 # (K, 6, 6)
     # Landmark normal blocks + rhs.
     land_mask = jnp.arange(M) < g.n_landmarks
-    All = jax.ops.segment_sum(jnp.einsum("ori,orj->oij", Jlw, Jl), g.o_l,
+    All = jax.ops.segment_sum(_einsum("ori,orj->oij", Jlw, Jl), g.o_l,
                               num_segments=M)                 # (M, 3, 3)
     All = All + (damping + 1e-3) * jnp.eye(3)[None]
     All_inv = jnp.where(land_mask[:, None, None], jnp.linalg.inv(All), 0.0)
-    b_l = jax.ops.segment_sum(jnp.einsum("ori,or->oi", Jlw, r_o), g.o_l,
+    b_l = jax.ops.segment_sum(_einsum("ori,or->oi", Jlw, r_o), g.o_l,
                               num_segments=M)                 # (M, 3)
 
     def coupling_T(v):
         """T·v = Alp·v (M,3) for a pose-space vector v (K,6)."""
-        u = jnp.einsum("ori,oi->or", Jp, v[g.o_i])            # (O, 3)
+        u = _einsum("ori,oi->or", Jp, v[g.o_i])               # (O, 3)
         return jax.ops.segment_sum(
-            jnp.einsum("ora,or->oa", Jlw, u), g.o_l, num_segments=M)
+            _einsum("ora,or->oa", Jlw, u), g.o_l, num_segments=M)
 
     def coupling_Tt(y):
         """Tᵀ·y = Apl·y (K,6) for a landmark-space vector y (M,3)."""
-        u = jnp.einsum("ora,oa->or", Jl, y[g.o_l])            # (O, 3)
+        u = _einsum("ora,oa->or", Jl, y[g.o_l])               # (O, 3)
         return jax.ops.segment_sum(
-            jnp.einsum("ori,or->oi", Jpw, u), g.o_i, num_segments=K)
+            _einsum("ori,or->oi", Jpw, u), g.o_i, num_segments=K)
 
     def schur_apply(v):
         """(App_obs − Tᵀ All⁻¹ T)·v, the landmark part of S·v."""
         direct = jax.ops.segment_sum(
-            jnp.einsum("ori,or->oi", Jpw,
-                       jnp.einsum("ori,oi->or", Jp, v[g.o_i])),
+            _einsum("ori,or->oi", Jpw,
+                    _einsum("ori,oi->or", Jp, v[g.o_i])),
             g.o_i, num_segments=K)
-        y = jnp.einsum("lab,lb->la", All_inv, coupling_T(v))
+        y = _einsum("lab,lb->la", All_inv, coupling_T(v))
         return direct - coupling_Tt(y)
 
     return b_p, D_o, All_inv, b_l, coupling_T, coupling_Tt, \
@@ -336,7 +339,7 @@ def solve_pcg_landmarks(g: GraphArrays, *, max_poses: int,
                                          damping)
         # Reduced rhs: b_red = b_p − Tᵀ All⁻¹ b_l.
         b = (b_e + b_o
-             - coupling_Tt(jnp.einsum("lab,lb->la", All_inv, b_l)))
+             - coupling_Tt(_einsum("lab,lb->la", All_inv, b_l)))
         D = D_e + D_o
         B = _chain_terms(g_cur, J, w, K)
         scale = jnp.mean(jnp.trace(D, axis1=-2, axis2=-1)) / 6.0
@@ -352,8 +355,8 @@ def solve_pcg_landmarks(g: GraphArrays, *, max_poses: int,
         delta_p = jnp.where(pose_mask & jnp.isfinite(delta_p), delta_p,
                             0.0)
         # Landmark back-substitution: δl = −All⁻¹ (b_l + Alp·δp).
-        delta_l = -jnp.einsum("lab,lb->la", All_inv,
-                              b_l + coupling_T(delta_p))
+        delta_l = -_einsum("lab,lb->la", All_inv,
+                           b_l + coupling_T(delta_p))
         land_mask = (jnp.arange(M) < g_cur.n_landmarks)[:, None]
         delta_l = jnp.where(land_mask & jnp.isfinite(delta_l), delta_l,
                             0.0)

@@ -1,7 +1,7 @@
 """Patch-tiled persistent voxel-Gaussian map.
 
 The MapManager/MapPatch equivalent (reference MapManager.h:16-49,
-MapPatch.h:7-17), redesigned for the TPU memory model:
+MapPatch.h:7-17), redesigned for a host/device memory split:
 
   * the world is tiled into square patches (default 100 m, the MapPatch
     `range` analog); each patch stores *sufficient statistics* per occupied

@@ -6,9 +6,10 @@ The reference is strictly single-process (SURVEY.md §2b: its only
 multi-host story demanded by BASELINE.json configs[4]:
 
   * `init_distributed` — one call per host; after it, `jax.devices()`
-    spans the slice and meshes built from it place collectives on ICI
-    within a host and DCN across (the runtime picks the transport; no
-    NCCL/MPI plumbing to port).
+    spans every process's devices and meshes built from it place
+    collectives on the devices' interconnect within a host and the
+    network across hosts (the runtime picks the transport; no NCCL/MPI
+    plumbing to port).
   * `tile_owner` — deterministic hash partitioning of map patches across
     processes (the distributed analog of MapManager's single-host patch
     grid, reference MapManager.cxx:25-46).
@@ -19,7 +20,7 @@ multi-host story demanded by BASELINE.json configs[4]:
     and multi-host.
   * `allgather` — fetch a replicated/global result to every host.
 
-Tested without TPU pods via multi-process CPU workers (Gloo collectives),
+Tested without a cluster via multi-process CPU workers (Gloo collectives),
 tests/test_multihost.py — the reference's loopback-fake-backend idea
 (SURVEY.md §4.2) applied to distributed execution.
 """
@@ -44,7 +45,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
     Arguments default from the environment (VELOSLAM_COORDINATOR /
     VELOSLAM_NUM_PROCESSES / VELOSLAM_PROCESS_ID), falling back to JAX's
-    own auto-detection on TPU pods where the launcher provides topology.
+    own auto-detection where a cluster launcher provides the topology.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "VELOSLAM_COORDINATOR")

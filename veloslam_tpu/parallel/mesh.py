@@ -7,7 +7,8 @@ Axes (SURVEY.md §2b — the distributed story the reference lacks):
 
 Multi-host: build the mesh over all global devices after
 `jax.distributed.initialize()`; patches/keyframes partition by their shard
-index so collectives ride ICI within a host's devices and DCN across.
+index; the runtime routes collectives over the devices' interconnect
+(NVLink within a host) and the network across hosts.
 """
 
 from __future__ import annotations

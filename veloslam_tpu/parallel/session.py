@@ -12,7 +12,7 @@ trajectory — there is no leader.
 The reference has no distributed execution of any kind (SURVEY.md §2b);
 this is the configs[4] "multi-host SLAM session", not just a kernel demo.
 Run under `dist.init_distributed` (Gloo between CPU processes in tests,
-ICI/DCN on TPU pods).
+the devices' interconnect on a GPU cluster).
 """
 
 from __future__ import annotations

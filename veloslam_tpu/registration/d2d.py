@@ -11,7 +11,7 @@ T·μ_s − μ_t with anisotropic weight W = (Σ_t + R Σ_s Rᵀ + εI)⁻¹
 corner voxel's fat covariance simply weights both directions — no wrong
 normal to fight.
 
-TPU shape: the cost runs over source VOXELS (≈2-8k rows), not points
+Shape: the cost runs over source VOXELS (≈2-8k rows), not points
 (≈100k) — an order of magnitude less gather traffic per GN iteration
 than point-based costs, with all 3×3 algebra batched closed-form
 (adjugate inverse, registration.voxel.regularized_inverse) and the 6×6
@@ -33,6 +33,8 @@ import jax.numpy as jnp
 
 from veloslam_tpu.core import se3
 from veloslam_tpu.registration import voxel as vx
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class D2dResult(NamedTuple):
@@ -89,17 +91,18 @@ def d2d_normal_equations(src: vx.VoxelGrid, pose: se3.Pose,
     r = mu_s - mu_t                                      # (V, 3)
     hit &= jnp.sum(r * r, -1) < max_dist * max_dist
 
-    cov_s_rot = jnp.einsum("ij,vjk,lk->vil", R, src_cov, R)
+    cov_s_rot = jnp.einsum("ij,vjk,lk->vil", R, src_cov, R,
+                           precision=HIGHEST)
     W = vx.regularized_inverse(cov_t + cov_s_rot, eps=eps)  # (V, 3, 3)
     w = jnp.where(hit, src.count, 0.0)                   # count-weighted
     W = W * w[:, None, None]
 
     J = jnp.concatenate([-_skew(mu_s), jnp.broadcast_to(
         jnp.eye(3, dtype=mu_s.dtype), (*mu_s.shape, 3))], -1)  # (V, 3, 6)
-    WJ = jnp.einsum("vij,vjk->vik", W, J)                # (V, 3, 6)
-    H = jnp.einsum("vji,vjk->ik", J, WJ)                 # (6, 6) MXU
-    b = jnp.einsum("vji,vjk,vk->i", J, W, r)             # (6,)
-    maha = jnp.einsum("vi,vij,vj->v", r, W, r)
+    WJ = jnp.einsum("vij,vjk->vik", W, J, precision=HIGHEST)  # (V, 3, 6)
+    H = jnp.einsum("vji,vjk->ik", J, WJ, precision=HIGHEST)   # (6, 6)
+    b = jnp.einsum("vji,vjk,vk->i", J, W, r, precision=HIGHEST)  # (6,)
+    maha = jnp.einsum("vi,vij,vj->v", r, W, r, precision=HIGHEST)
     err = jnp.sum(maha) / jnp.maximum(jnp.sum(w), 1.0)
     return H, b, err, hit.sum().astype(jnp.int32)
 

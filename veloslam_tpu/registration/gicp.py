@@ -2,15 +2,15 @@
 
 Supplies the registration capability the reference leaves unimplemented
 (reference README.md:25-26: "SLAM algorithm" not implemented; SURVEY.md §0),
-designed TPU-first:
+as static-shaped array programs:
 
   * the target scan is summarized once as a voxel-Gaussian grid
     (registration.voxel) with a per-voxel plane normal from the closed-form
     smallest eigenvector;
   * each Gauss-Newton iteration is: transform points → pack keys → binary
     search → gather (μ, n) → point-to-plane residual r = nᵀ(p′ − μ) with
-    Huber weights → 6×6 normal equations via two einsums (a (6, P)·(P, 6)
-    matmul — MXU work) → solve → retract;
+    Huber weights → 6×6 normal equations as full-float32 reductions over
+    the points → solve → retract;
   * fixed iteration count under `lax.fori_loop`, no data-dependent Python
     control flow, everything static-shaped and jittable.
 
@@ -90,94 +90,80 @@ def associate(pts: jax.Array, mask: jax.Array, pose: se3.Pose,
     """Correspondence search at the CURRENT pose: per-point target plane
     (μ, n) + hit mask.  This is the gather-heavy half of a GICP iteration
     (voxel lookup + stat gathers); the linearization half is pure
-    elementwise + MXU work.  Splitting them lets `register` re-associate
-    every few iterations instead of every iteration — on TPU the lookup
-    gathers dominate the whole pipeline (measured: 0.6 s per association
-    pass vs <10 ms per fixed-correspondence GN iteration at 96×32768
-    points), while with an INS prior the correspondences barely change
-    between consecutive iterations."""
-    g = target.grid
-    p = se3.apply(pose, pts)
-    if isinstance(dense, vx.DilatedIndex):
-        # Pre-dilated table: the 7-neighborhood choice + usable gating are
-        # baked in at build time — one gather per point here.
-        idx = vx.lookup_dilated(g, dense, p, mask)
-    elif dense is not None:
-        idx = vx.lookup_nearest_dense(g, dense, p, mask, target.usable,
-                                      approx_centers=approx_centers)
-    else:
-        idx = vx.lookup_nearest(g, p, mask, target.usable)
-    hit = idx >= 0
-    safe = jnp.maximum(idx, 0)
-    return g.mean[safe], target.normal[safe], hit
+    elementwise + a small matrix product.  Splitting them lets `register`
+    re-associate every few iterations instead of every iteration — the
+    lookup gathers are the expensive half, while with an INS prior the
+    correspondences barely change between consecutive iterations."""
+    with jax.named_scope("gicp_associate"):
+        g = target.grid
+        p = se3.apply(pose, pts)
+        if isinstance(dense, vx.DilatedIndex):
+            # Pre-dilated table: the 7-neighborhood choice + usable gating are
+            # baked in at build time — one gather per point here.
+            idx = vx.lookup_dilated(g, dense, p, mask)
+        elif dense is not None:
+            idx = vx.lookup_nearest_dense(g, dense, p, mask, target.usable,
+                                          approx_centers=approx_centers)
+        else:
+            idx = vx.lookup_nearest(g, p, mask, target.usable)
+        hit = idx >= 0
+        safe = jnp.maximum(idx, 0)
+        return g.mean[safe], target.normal[safe], hit
 
 
 def normal_equations_fixed(pts: jax.Array, pose: se3.Pose, mu: jax.Array,
                            n: jax.Array, hit: jax.Array, *,
-                           huber_delta: float = 0.5, max_dist: float = 2.0,
-                           use_pallas: bool = False,
-                           pallas_interpret: bool = False):
+                           huber_delta: float = 0.5, max_dist: float = 2.0):
     """Linearization with FIXED correspondences (μ, n, hit) from a prior
     `associate` call: (H (6,6), b (6,), err (), n_matched ())."""
-    p = se3.apply(pose, pts)
-    r = jnp.sum(n * (p - mu), axis=-1)
-    hit &= jnp.abs(r) < max_dist
-    # Huber influence weights.
-    absr = jnp.abs(r)
-    w = jnp.where(absr <= huber_delta, 1.0,
-                  huber_delta / jnp.maximum(absr, 1e-12))
-    w = jnp.where(hit, w, 0.0)
+    with jax.named_scope("gicp_normal_equations"):
+        p = se3.apply(pose, pts)
+        r = jnp.sum(n * (p - mu), axis=-1)
+        hit &= jnp.abs(r) < max_dist
+        # Huber influence weights.
+        absr = jnp.abs(r)
+        w = jnp.where(absr <= huber_delta, 1.0,
+                      huber_delta / jnp.maximum(absr, 1e-12))
+        w = jnp.where(hit, w, 0.0)
 
-    if use_pallas:
-        from veloslam_tpu.registration.pallas_kernels import (
-            TILE, fused_normal_equations)
-        # Interpreter mode off-TPU (CI runs the same code path on CPU).
-        pallas_interpret = pallas_interpret or jax.default_backend() != "tpu"
-        P = p.shape[0]
-        pad = (-P) % TILE
-        rows = jnp.stack([p[:, 0], p[:, 1], p[:, 2],
-                          n[:, 0], n[:, 1], n[:, 2], r, w])
-        if pad:
-            rows = jnp.pad(rows, ((0, 0), (0, pad)))
-        H, b, err_sum, n_hit, w_sum = fused_normal_equations(
-            rows, interpret=pallas_interpret)
-        err = err_sum / jnp.maximum(w_sum, 1.0)
-        return H, b, err, n_hit
-
-    J = jnp.concatenate([jnp.cross(p, n), n], axis=-1)       # (P, 6)
-    Jw = J * w[:, None]
-    H = jnp.einsum("pi,pj->ij", Jw, J)                       # MXU
-    b = jnp.einsum("pi,p->i", Jw, r)
-    err = jnp.sum(jnp.abs(r) * w) / jnp.maximum(jnp.sum(w), 1.0)
-    return H, b, err, hit.sum().astype(jnp.int32)
+        J = jnp.concatenate([jnp.cross(p, n), n], axis=-1)       # (P, 6)
+        Jw = J * w[:, None]
+        # Full float32 reductions: J carries p × n with p up to hundreds
+        # of metres from the origin, and a reduced-precision (TF32-class)
+        # product keeps ~3 decimal digits — enough to move the solved
+        # pose.  H is an elementwise multiply + reduce: as a dot, with the
+        # frame slots vmapped, it becomes a batched gemm with 6x6 outputs
+        # and K = P, which on an H100 cost 0.55 ms per call at HIGHEST
+        # precision against 0.16 ms for this form (96 slots x 16384
+        # points).
+        H = jnp.sum(Jw[:, :, None] * J[:, None, :], axis=0)
+        b = jnp.einsum("pi,p->i", Jw, r,
+                       precision=jax.lax.Precision.HIGHEST)
+        err = jnp.sum(jnp.abs(r) * w) / jnp.maximum(jnp.sum(w), 1.0)
+        return H, b, err, hit.sum().astype(jnp.int32)
 
 
 def normal_equations(pts: jax.Array, mask: jax.Array, pose: se3.Pose,
                      target: PlaneGrid, *, huber_delta: float = 0.5,
-                     max_dist: float = 2.0, use_pallas: bool = False,
-                     pallas_interpret: bool = False, dense=None):
+                     max_dist: float = 2.0, dense=None):
     """One full linearization (associate + linearize at the same pose):
     (H (6,6), b (6,), err (), n_matched ()).
 
     Residual r = nᵀ(p′ − μ); left-perturbation Jacobian J = [(p′ × n)ᵀ, nᵀ].
-    With use_pallas the J-formation + reduction runs as a fused VMEM
-    kernel (registration.pallas_kernels) instead of materializing the
-    (P, 6) Jacobian through HBM.
     """
     mu, n, hit = associate(pts, mask, pose, target, dense)
     return normal_equations_fixed(pts, pose, mu, n, hit,
                                   huber_delta=huber_delta,
-                                  max_dist=max_dist, use_pallas=use_pallas,
-                                  pallas_interpret=pallas_interpret)
+                                  max_dist=max_dist)
 
 
-@functools.partial(jax.jit, static_argnames=("iterations", "use_pallas",
+@functools.partial(jax.jit, static_argnames=("iterations",
                                              "reassociate_every",
                                              "dense_approx_centers"))
 def register(pts: jax.Array, mask: jax.Array, target: PlaneGrid,
              init_pose: se3.Pose, *, iterations: int = 16,
              damping: float = 1e-6, huber_delta: float = 0.5,
-             max_dist: float = 2.0, use_pallas: bool = False,
+             max_dist: float = 2.0,
              dense=None, reassociate_every: int = 1,
              dense_approx_centers: bool = True) -> GicpResult:
     """Gauss-Newton point-to-plane registration of a source scan against a
@@ -189,7 +175,7 @@ def register(pts: jax.Array, mask: jax.Array, target: PlaneGrid,
 
     `reassociate_every`: re-run correspondence search every k iterations
     (1 = classical ICP, every iteration).  The search is the only
-    gather-bound stage — on TPU it costs ~100× a fixed-correspondence GN
+    gather-bound stage — far costlier than a fixed-correspondence GN
     iteration — and with a good prior (INS, or the previous frame) the
     correspondence set is stable across consecutive iterations, so k of
     4-8 trades no measurable accuracy for most of the runtime
@@ -199,7 +185,7 @@ def register(pts: jax.Array, mask: jax.Array, target: PlaneGrid,
         pose, _, _, _ = state
         H, b, err, n_hit = normal_equations_fixed(
             pts, pose, mu, n, hit0, huber_delta=huber_delta,
-            max_dist=max_dist, use_pallas=use_pallas)
+            max_dist=max_dist)
         Hd = H + damping * jnp.eye(6, dtype=H.dtype) \
             + 1e-6 * jnp.trace(H) * jnp.eye(6, dtype=H.dtype)
         delta = -jax.scipy.linalg.cho_solve(
@@ -235,7 +221,7 @@ def register(pts: jax.Array, mask: jax.Array, target: PlaneGrid,
                       iterations=jnp.asarray(iterations, jnp.int32), H=H)
 
 
-@functools.partial(jax.jit, static_argnames=("iterations", "use_pallas",
+@functools.partial(jax.jit, static_argnames=("iterations",
                                              "share_target",
                                              "reassociate_every",
                                              "dense_approx_centers"))
@@ -243,7 +229,7 @@ def register_batch(pts: jax.Array, mask: jax.Array, target: PlaneGrid,
                    init_poses: se3.Pose, dense=None, *,
                    iterations: int = 16,
                    damping: float = 1e-6, huber_delta: float = 0.5,
-                   max_dist: float = 2.0, use_pallas: bool = False,
+                   max_dist: float = 2.0,
                    share_target: bool = True,
                    reassociate_every: int = 1,
                    dense_approx_centers: bool = True) -> GicpResult:
@@ -270,7 +256,7 @@ def register_batch(pts: jax.Array, mask: jax.Array, target: PlaneGrid,
     def fn(p, m, t, i, d):
         return register(p, m, t, i, iterations=iterations, damping=damping,
                         huber_delta=huber_delta, max_dist=max_dist,
-                        use_pallas=use_pallas, dense=d,
+                        dense=d,
                         reassociate_every=reassociate_every,
                         dense_approx_centers=dense_approx_centers)
     t_axes = None if share_target else 0

@@ -9,7 +9,7 @@ Gauss-Newton:
     r = p′ − μ            (3,)
     W = (Σ + εI)⁻¹        (3, 3)  closed-form adjugate inverse
     J = [−[p′]ₓ | I]      (3, 6)  left perturbation
-    H = Σₚ Jᵀ W J,  b = Σₚ Jᵀ W r   — batched einsums (MXU)
+    H = Σₚ Jᵀ W J,  b = Σₚ Jᵀ W r   — float32 einsums at HIGHEST
 
 This is BASELINE configs[2]; the machinery intentionally shares the voxel
 grid and solver shape with registration.gicp so scan-to-scan and
@@ -26,6 +26,8 @@ import jax.numpy as jnp
 
 from veloslam_tpu.core import se3
 from veloslam_tpu.registration import voxel as vx
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class NdtResult(NamedTuple):
@@ -92,10 +94,11 @@ def normal_equations(pts: jax.Array, mask: jax.Array, pose: se3.Pose,
 
     J = jnp.concatenate([-_hat(p), jnp.broadcast_to(
         jnp.eye(3, dtype=p.dtype), (*p.shape[:-1], 3, 3))], axis=-1)  # (P,3,6)
-    WJ = jnp.einsum("pab,pbj->paj", W, J) * w[:, None, None]
-    H = jnp.einsum("pai,paj->ij", J, WJ)
-    b = jnp.einsum("paj,pa->j", WJ, r)
-    mahal = jnp.einsum("pa,pab,pb->p", r, W, r)
+    WJ = jnp.einsum("pab,pbj->paj", W, J,
+                    precision=HIGHEST) * w[:, None, None]
+    H = jnp.einsum("pai,paj->ij", J, WJ, precision=HIGHEST)
+    b = jnp.einsum("paj,pa->j", WJ, r, precision=HIGHEST)
+    mahal = jnp.einsum("pa,pab,pb->p", r, W, r, precision=HIGHEST)
     err = jnp.sum(mahal * w) / jnp.maximum(w.sum(), 1.0)
     return H, b, err, hit.sum().astype(jnp.int32)
 

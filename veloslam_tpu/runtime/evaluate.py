@@ -14,8 +14,11 @@ import numpy as np
 def umeyama_align(est: np.ndarray, ref: np.ndarray, with_scale: bool = False):
     """Least-squares similarity transform aligning est → ref (both (N, 3)).
 
-    Returns (R (3,3), t (3,), s) minimizing ‖s·R·est + t − ref‖².
+    Returns (R (3,3), t (3,), s) minimizing ‖s·R·est + t − ref‖².  Runs
+    in host float64 whatever array type the caller passes.
     """
+    est = np.asarray(est, np.float64)
+    ref = np.asarray(ref, np.float64)
     mu_e, mu_r = est.mean(0), ref.mean(0)
     xe, xr = est - mu_e, ref - mu_r
     cov = xr.T @ xe / len(est)

@@ -7,7 +7,7 @@ query, and a meta-index checkpoint that lets a session resume from disk
 alone (saveHDLMeta/loadHDLMeta contract, HDLManager.cxx:427-467).
 
 Differences by design: frames are dense numpy tensors persisted as npz
-(decode already happened once on the TPU); queries are Timeline binary
+(decode already happened once on the device); queries are Timeline binary
 searches instead of bucket scans.  As a fallback, frames whose payload was
 dropped (no spill dir) or whose npz is missing can be re-decoded from
 their pcap byte offsets via a pipeline-provided `redecoder` — the

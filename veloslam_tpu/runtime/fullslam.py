@@ -14,7 +14,7 @@ trajectory.
 
 Capability mapping: the runtime contract of the reference's HDLManager
 (frame production, reference HDLManager.cxx:62-72) plus the SLAM loop the
-reference never implemented (README.md:25-26), at TPU-native throughput.
+reference never implemented (README.md:25-26), at bulk-replay throughput.
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ def _admit_keyframes(kf: KeyframeRing, slots: odo.SlotResults,
 @functools.partial(jax.jit, static_argnames=(
     "model", "n_beams", "reg_points", "reg_iterations", "max_frames_batch",
     "min_points", "min_planarity", "scan_points", "kf_dist_m",
-    "kf_rot_rad", "use_pallas", "use_dense", "reassociate_every",
+    "kf_rot_rad", "use_dense", "reassociate_every",
     "sample_assembly", "map_decay"))
 def slam_step_batched(state: SlamState, pkts: jax.Array,
                       calib: DeviceCalib, pkt_rel_s: jax.Array,
@@ -135,7 +135,7 @@ def slam_step_batched(state: SlamState, pkts: jax.Array,
                       min_points: int = 4, min_planarity: float = 0.35,
                       scan_points: int = 8192, kf_dist_m: float = 2.0,
                       kf_rot_rad: float = 0.1745,
-                      use_pallas: bool = False, use_dense: bool = False,
+                      use_dense: bool = False,
                       reassociate_every: int = 1,
                       sample_assembly: bool = False,
                       map_decay: float = 0.98
@@ -147,7 +147,7 @@ def slam_step_batched(state: SlamState, pkts: jax.Array,
         model=model, n_beams=n_beams, reg_points=reg_points,
         reg_iterations=reg_iterations, max_frames_batch=max_frames_batch,
         min_points=min_points, min_planarity=min_planarity,
-        use_pallas=use_pallas, use_dense=use_dense,
+        use_dense=use_dense,
         reassociate_every=reassociate_every,
         sample_assembly=sample_assembly, map_decay=map_decay)
     kf = _admit_keyframes(state.kf, slots, batch_start_rel_stream_s,
@@ -170,15 +170,14 @@ class FullSlam(odo.StreamingOdometry):
                  map_capacity: int = 32768, max_frames: int = 4096,
                  kf_capacity: int = 512, kf_scan_points: int = 8192,
                  kf_dist_m: float = 2.0, kf_rot_deg: float = 10.0,
-                 use_pallas: bool = False, use_dense: bool = False,
+                 use_dense: bool = False,
                  reassociate_every: int = 1, frame_rate_hz: float = 10.0,
                  map_decay: float = 0.98):
         super().__init__(calib, model=model, n_beams=n_beams,
                          voxel_size=voxel_size, reg_points=reg_points,
                          reg_iterations=reg_iterations,
                          map_capacity=map_capacity, max_frames=max_frames,
-                         batched=True, use_pallas=use_pallas,
-                         use_dense=use_dense,
+                         batched=True, use_dense=use_dense,
                          reassociate_every=reassociate_every,
                          frame_rate_hz=frame_rate_hz, map_decay=map_decay)
         # Keyframe scans are a prefix of the registration point set, so
@@ -216,7 +215,7 @@ class FullSlam(odo.StreamingOdometry):
             max_frames_batch=self._feed_slots or self.MAX_FRAMES_BATCH,
             scan_points=self.kf_scan_points, kf_dist_m=self.kf_dist_m,
             kf_rot_rad=self.kf_rot_rad,
-            use_pallas=self.use_pallas, use_dense=self.use_dense,
+            use_dense=self.use_dense,
             reassociate_every=self.reassociate_every,
             sample_assembly=self.sample_assembly,
             map_decay=self.map_decay)
